@@ -18,12 +18,12 @@ Two configurations share one driver:
   ``branch_names``, or ``rj_moves``): coords/inds dicts per branch, tree
   moves (TreeStretchMove, TreeGaussianMove) for the in-model phase and
   ``DistributionGenerateRJ.propose_tree`` for trans-dimensional birth /
-  death. The TPU-native likelihood contract here is ``log_like_fn(coords,
+  death. The likelihood contract here is ``log_like_fn(coords,
   inds, *args) -> (ntemps, nwalkers)`` with masked leaves (dicts for
   multiple branches, bare arrays for one branch) — the jit-compilable
   replacement for the reference's per-leaf host loops.
 
-TPU-native structure: one full iteration — in-model move (weighted
+Structure: one full iteration — in-model move (weighted
 `lax.switch` schedule), RJ moves, temperature swap cascade, ladder
 adaptation — is a single pure jitted function of the state pytree; the
 Python loop only pumps iterations and streams thinned samples to the

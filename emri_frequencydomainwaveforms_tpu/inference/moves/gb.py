@@ -24,7 +24,7 @@ Rebuilds the off-path move collection of the reference's
   ``bruterejection.py:22``, ``gbbruterejectionrj.py:25``): RJ births chosen
   from ``num_brute`` candidates weighted by exp(loglike) with detailed-
   balance factor ``-log p_sel`` — exactly the multiple-try RJ estimator, so
-  the TPU rebuild derives it from `MTDistGenMoveRJ` and adds the
+  this rebuild derives it from `MTDistGenMoveRJ` and adds the
   reference's knobs: ``take_max_ll`` (greedy search mode, detailed balance
   deliberately broken, as in the reference) and a ``point_generator_func``
   hook for search-sample libraries.

@@ -14,7 +14,7 @@ Rebuilds the remaining members of Eryn's move family:
 * ``DelayedRejectionMove`` (reference ``moves/delayedrejection.py:31``): a
   two-stage symmetric random-walk MH — on first-stage rejection, retry
   with a ``scale_2``-shrunk step and accept with the Tierney-Mira DR
-  ratio. Both stages evaluate in the same jitted call (TPU-shaped: no
+  ratio. Both stages evaluate in the same jitted call (no
   data-dependent control flow; the second stage's work is masked out for
   walkers that accepted stage one).
 * ``CombineMove`` (reference ``moves/combine.py:11``): apply a sequence of

@@ -14,7 +14,7 @@ which for independent draws needs no second candidate cloud (the reverse
 cloud reuses the forward draws with the current point swapped in for the
 selected candidate — the standard I-MTM estimator).
 
-TPU-native shape: all ``(ntemps, nwalkers, num_try)`` candidates evaluate
+Shape: all ``(ntemps, nwalkers, num_try)`` candidates evaluate
 in ONE batched likelihood call; selection is a Gumbel-max over log
 weights (no per-walker loops).
 """

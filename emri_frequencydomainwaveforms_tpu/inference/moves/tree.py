@@ -22,7 +22,7 @@ stretch move a single affine factor z per walker applies across branches,
 with the Goodman-Weare Jacobian exponent counting the walker's actually
 moved dimensions (slots active in both the walker and its complement
 partner). This is a valid affine-invariant proposal on the product space
-and compiles to one XLA program with no host loops (the TPU-shaped
+and compiles to one XLA program with no host loops (the jitted
 equivalent of vectorize=True). Random-scan Gibbs over branches is
 available via ``gibbs_branches``.
 """

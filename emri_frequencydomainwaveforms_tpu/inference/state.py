@@ -8,7 +8,7 @@ random_state; ``BranchSupplimental``:16 side-car data;
 
 The State is a registered pytree so a whole MCMC iteration — moves, accept
 logic, temperature swaps — jit-compiles over it; the ``random_state`` slot
-holds a jax PRNG key (the TPU-native replacement for the numpy RandomState
+holds a jax PRNG key (the jittable replacement for the numpy RandomState
 the reference persists).
 """
 

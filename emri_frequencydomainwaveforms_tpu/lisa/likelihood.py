@@ -7,7 +7,7 @@ Rebuilds the reference's ``LISAanalysistools/lisatools/sampling/likelihood.py``
 ``:295`` __call__ — parameter transform + ``subset`` micro-batching;
 ``:399`` GlobalLikelihood — grouped/summed templates).
 
-TPU-native differences:
+Differences from the reference:
 * the template model is a JITTABLE function ``params_full -> ((hp_re, hp_im),
   (hc_re, hc_im))`` on the stored ``f_arr`` — the whole batched likelihood
   (transform -> waveforms -> whiten -> reduce) compiles to one XLA program
@@ -15,7 +15,9 @@ TPU-native differences:
 * the reference's ``subset`` GPU micro-batching knob is honored via
   `lax.map` chunking (bounds peak memory for huge walker counts) but is no
   longer required for correctness.
-* complex data is carried as (re, im) f64 pairs (TPU has no complex128);
+* complex data is carried as (re, im) f64 pairs (a choice made for the
+  accelerator this package was first built for, which had no complex128;
+  ROADMAP Design item 3);
   the host-facing ``inject_signal`` accepts numpy complex channels.
 """
 

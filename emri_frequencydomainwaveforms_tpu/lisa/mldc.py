@@ -10,7 +10,7 @@ repo's `sensitivity` module did not carry: ``SGal``/``GalConf``
 (``sensitivity.py:604-701``, the Tobs-interpolated MLDC galactic fit) and
 ``simplesnr`` (``:374``).
 
-Design departures from the reference (deliberate, TPU-idiomatic):
+Design departures from the reference (deliberate):
 
 * the reference mutates class-level statics (``model.setmodel`` edits
   ``model.lisaL`` globally); here the mission configuration is a FROZEN
@@ -19,7 +19,7 @@ Design departures from the reference (deliberate, TPU-idiomatic):
   ``setmodel`` preset.
 * math runs through the `_xp` dual backend convention of
   `lisa.sensitivity`: numpy in -> exact IEEE f64 out (PSD magnitudes
-  ~1e-40 underflow the TPU f64 emulation — see sensitivity.py:33-48);
+  ~1e-40 underflow an emulated device f64 — see sensitivity.py:33-48);
   jnp arrays still trace for in-graph use with rescaled strains.
 
 These curves are historical MLDC analysis surface, off the production

@@ -22,7 +22,7 @@ The template is then evaluated at only ``nbins + 1`` frequencies per
 likelihood call — the orders-of-magnitude speedup the reference pipeline
 exploits for MBH search/PE.
 
-TPU-native shape: setup (binning + summaries) runs host-side in numpy
+Shape: setup (binning + summaries) runs host-side in numpy
 f64; the per-call core is pure jnp on (re, im) pairs (no complex dtypes),
 jittable and vmappable over walkers.
 
@@ -135,9 +135,9 @@ class RelativeBinningLikelihood:
         self._a1 = [(jnp.asarray(x.real), jnp.asarray(x.imag)) for x in a1]
         self._b0 = [jnp.asarray(x) for x in b0]
         self._b1 = [jnp.asarray(x) for x in b1]
-        # strain-scale normalization: |h0|^2 ~ 1e-38 underflows the TPU's
+        # strain-scale normalization: |h0|^2 ~ 1e-38 underflows an emulated
         # double-float f64 (values below the f32 normal range flush to
-        # zero); the ratio r = (h/s)/(h0/s) is scale-invariant, so both
+        # zero; see lisa.sensitivity); the ratio r = (h/s)/(h0/s) is scale-invariant, so both
         # sides are normalized by a per-channel scale
         self._scale = [
             float(np.median(np.abs(h[edge_idx])) + 1e-300) for h in h0
@@ -163,7 +163,7 @@ class RelativeBinningLikelihood:
             h0r, h0i = self._h0_edges[ci]
             den = h0r * h0r + h0i * h0i
             # live-bin mask instead of a tiny-epsilon guard: sub-1e-38
-            # constants FLUSH TO ZERO in the TPU's double-float f64, so a
+            # constants FLUSH TO ZERO in an emulated double-float f64, so a
             # 1e-300 floor becomes 0 and dead fiducial edges (h0 = 0
             # outside the mode bands) would yield 0/0 = NaN. Dead edges
             # carry zero summary weight (A/B integrals vanish where

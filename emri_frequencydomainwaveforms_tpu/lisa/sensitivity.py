@@ -14,8 +14,8 @@ published formulas:
 * first-generation TDI X/A/E/T PSDs (standard MLDC expressions);
 * galactic-confusion fit with observation-time-dependent knee.
 
-All functions are pure jnp and broadcast over ``f``; they run under jit on
-TPU (f64) and are used by the likelihood's whitening. The reference also
+All functions are pure jnp and broadcast over ``f``; they run under jit in
+f64 and are used by the likelihood's whitening. The reference also
 ships a tabulated file-based curve (``LISA_Alloc_Sh.txt`` via
 ``FDutils.py:21-33``); `sensitivity_from_table` loads any such 2-column
 table supplied by the user.
@@ -33,8 +33,10 @@ import numpy as np
 def _xp(f):
     """Array namespace of the input: numpy in -> numpy math (true f64).
 
-    Load-bearing on TPU: the device "f64" is a double-float emulation that
-    FLUSHES values below the f32 normal range (~1e-38) to zero — LISA PSDs
+    Load-bearing on the accelerator this package was first built for, whose
+    device "f64" was a double-float emulation that FLUSHED values below the
+    f32 normal range (~1e-38) to zero (ROADMAP Design item 2 asks whether
+    the host-side split still pays on the GPU) — LISA PSDs
     are ~1e-41..1e-36 strain^2/Hz, so evaluating them on-device silently
     zeroes the likelihood whitening. Host-side callers (injection, inner
     products) pass numpy arrays and get exact IEEE f64; jitted in-graph use
@@ -100,7 +102,7 @@ def galactic_confusion(f, t_obs_years: float = 4.0):
         amp
         * f ** (-7.0 / 3.0)
         * xp.exp(-(f**alpha) + beta * f * xp.sin(kappa * f))
-        # clamp: TPU f64-emulated tanh misbehaves at large |x| (saturated anyway)
+        # clamp: an emulated-f64 tanh misbehaves at large |x| (saturated anyway)
         * (1.0 + xp.tanh(xp.clip(gamma * (fk - f), -20.0, 20.0)))
     )
 

@@ -6,16 +6,16 @@ TDI (X, Y, Z) / (A, E, T) triple supporting elementwise algebra
 (+, -, *, /, scalar multiples), lazily-evaluated channel PSDs, and the
 noise-weighted reductions ``normsq`` / ``dotprod`` / ``cprod`` / ``logL``.
 
-TPU-native differences:
+Differences from the reference:
 * channels are stored as BOTH bases up front (A, E, T derived once from
   X, Y, Z or vice versa — the reference's lazy ``Xf`` attribute errors
   when constructed from AET; here both always exist);
 * the container is a registered pytree (NamedTuple) over ``(re, im)``
-  float pairs, so reductions jit/vmap and run on TPU where complex128 is
-  unavailable; complex numpy arrays are accepted and returned at the host
+  float pairs, so reductions jit/vmap without complex dtypes (a choice made
+  for an accelerator without complex128; ROADMAP Design item 3); complex numpy arrays are accepted and returned at the host
   boundary;
 * PSDs are computed host-side in numpy (LISA PSD magnitudes ~1e-40
-  underflow the TPU's double-float f64 — see `lisa.sensitivity`) and
+  underflow an emulated double-float f64 — see `lisa.sensitivity`) and
   enter reductions as constants.
 """
 

@@ -53,8 +53,9 @@ Darwin angle, evaluated in f32 end-to-end (amplitude precision ~1e-6
 relative — orders below the 1e-4 mismatch gate; waveform PHASES never pass
 through this module): the periodic antiderivatives t(chi), phi(chi) and the
 (knots, rows) x (rows, harmonics) projection are batched f32 matmuls at
-``Precision.HIGHEST`` — MXU-shaped, where the earlier f64 path paid the
-~20x emulation tax that made amplitudes the prologue bottleneck on v5e.
+``Precision.HIGHEST`` (full f32 on the GPU; a default-precision f32 matmul
+may run in TF32). The f32 choice was made for an accelerator with emulated
+f64 (ROADMAP Design item 2).
 """
 
 from __future__ import annotations
@@ -188,8 +189,8 @@ class ModeTable(NamedTuple):
 
         The production fast path slices the table to a frozen mode
         selection BEFORE the prologue so amplitudes/Ylm evaluate only for
-        the kept modes (519-candidate amplitude evaluation costs ~0.09
-        ms/waveform at batch 128 on v5e; the 16 kept modes cost ~0.04).
+        the kept modes (16 of the 519 candidates at the bench
+        configuration).
         Pass the SAME sliced table to the summation kernels with
         ``forced_idx=np.arange(len(idx))``.
         """

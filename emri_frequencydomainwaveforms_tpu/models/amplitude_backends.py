@@ -15,7 +15,7 @@ same interface as `models.amplitude.mode_amplitudes`:
   touching the waveform pipeline.
 * `RomanAmplitude` — a small MLP ``(u, e) -> A_lmn`` (reference
   ``few.amplitude.romannet.RomanAmplitude``, a CUDA reduced-order network).
-  Here the matmuls land on the MXU; `fit_roman_network` trains the weights
+  Here the matmuls land on the matrix units; `fit_roman_network` trains the weights
   against any amplitude backend with optax.
 """
 
@@ -134,7 +134,7 @@ def init_roman_network(
 
 
 def roman_forward(params: RomanParams, p, e):
-    """MLP amplitudes -> (re, im), each (..., n_modes). MXU-friendly."""
+    """MLP amplitudes -> (re, im), each (..., n_modes)."""
     u = u_of_pe(jnp.asarray(p), jnp.asarray(e))
     x = jnp.stack([u, jnp.asarray(e)], axis=-1)
     for w, b in zip(params.weights[:-1], params.biases[:-1]):

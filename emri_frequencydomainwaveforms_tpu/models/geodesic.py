@@ -1,6 +1,6 @@
 """Schwarzschild eccentric geodesics: energy, angular momentum, frequencies.
 
-TPU-native replacement for the reference engine's C++ utilities
+JAX replacement for the reference engine's C++ utilities
 ``get_fundamental_frequencies`` / ``get_separatrix`` (behavior pinned at
 reference ``Tutorial_FD_construction_single_mode.ipynb`` cells 11-15 and 26:
 ``OmegaPhi, OmegaTheta, OmegaR = get_fundamental_frequencies(0., p, e, 0.)``
@@ -14,8 +14,8 @@ dimensionless (radians per M of coordinate time). Orbits are parametrized by
 Design note: instead of the closed forms with complete elliptic integrals
 (Cutler-Kennefick-Poisson 1994), the radial period and periapsis advance are
 computed by trapezoidal quadrature of the smooth 2*pi-periodic Darwin
-integrands — spectrally accurate, branch-free, and vmappable, which is the
-right shape for TPU (a fixed-size reduction instead of iterative AGM loops).
+integrands — spectrally accurate, branch-free, and vmappable (a
+fixed-size reduction instead of iterative AGM loops).
 """
 
 from __future__ import annotations
@@ -125,8 +125,7 @@ def darwin_orbit(p: jax.Array, e: jax.Array, n_chi: int = _N_CHI):
     Integrals of the periodic integrands are done spectrally: cumulative
     t(chi) and phi(chi) via a precomputed real spectral-antiderivative matrix
     (the operator is linear, so it is baked host-side with numpy FFTs into a
-    dense (n, n) f64 matmul — complex dtypes never reach the device, and the
-    contraction maps onto the MXU).
+    dense (n, n) f64 matmul — complex dtypes never reach the device).
     """
     chi = (2.0 * jnp.pi / n_chi) * jnp.arange(n_chi)
     ecos = e * jnp.cos(chi)
@@ -161,7 +160,7 @@ def darwin_orbit(p: jax.Array, e: jax.Array, n_chi: int = _N_CHI):
 #
 # Pins the generic-spin signature of the reference engine's
 # ``get_fundamental_frequencies(a, p, e, x)`` / ``get_separatrix(a, e, x)``
-# (reference FD notebook cell 1) for EQUATORIAL orbits. Same TPU design as
+# (reference FD notebook cell 1) for EQUATORIAL orbits. Same design as
 # the Schwarzschild path: a fixed-count Newton solve (vmappable, branch-free)
 # for the orbit constants and spectral Darwin quadrature for the
 # frequencies — no elliptic-integral AGM loops.
@@ -334,8 +333,8 @@ def separatrix_kerr(a, e, x=1.0):
 # get_fundamental_frequencies(a, p, e, x) for generic x = cos I).
 #
 # Conventions (Schmidt 2002 / Drasco-Hughes 2004 structure, computed here
-# by spectral quadrature instead of elliptic integrals — TPU-friendly
-# fixed-shape sums, same pattern as the equatorial path above):
+# by spectral quadrature instead of elliptic integrals — fixed-shape
+# sums, same pattern as the equatorial path above):
 #   x = cos I with z_- = cos^2(theta_min) = 1 - x^2 and sign(L_z) =
 #   sign(x) (the few convention);
 #   radial potential R(r) = (E(r^2+a^2) - a L_z)^2

@@ -80,8 +80,8 @@ def schwarz_ecc_flux_inspiral(
       method: "dp5" (adaptive sequential stepper, the reference-shaped
         path) or "quad" (parallel-in-time p-coordinate quadrature,
         `models.trajectory_quad` — same Trajectory contract, phases agree
-        to <~1e-4 rad over full inspirals; sequential depth ~4x smaller
-        on TPU, all knots live).
+        to <~1e-4 rad over full inspirals; ~4x less sequential depth,
+        all knots live).
 
     Returns:
       Trajectory with t in seconds; stops at min(T, separatrix reached).

@@ -1,6 +1,6 @@
 """Jittable adaptive Dormand-Prince inspiral integrator with dense knots.
 
-TPU-native replacement for the reference engine's C++ adaptive RK8 trajectory
+JAX replacement for the reference engine's C++ adaptive RK8 trajectory
 stepper (``few.trajectory.inspiral.EMRIInspiral``; sparse-knot contract pinned
 at reference notebook cell 3: ``DENSE_STEPPING: 0, max_init_len: 1e3`` — the
 ODE's own adaptive steps ARE the output knots that all downstream splines are
@@ -110,7 +110,7 @@ def integrate_inspiral(
         # tableau IS the a[6] row), and on a rejected step y is unchanged, so
         # the carried value stays valid either way. Saves 1 of 7 RHS evals
         # per iteration; the RHS (flux + Darwin quadrature) dominates the
-        # op-count-bound while-loop body on TPU.
+        # op-count-bound while-loop body.
         k = [k0]
         for i in range(1, 7):
             yi = y
@@ -165,10 +165,9 @@ def integrate_inspiral(
         count_new = jnp.where(do_write, c.count + 1, c.count)
         idx = jnp.minimum(c.count, max_steps - 1)
         # one-hot masked select, NOT .at[idx].set: under vmap the per-lane
-        # write index lowers the update to a serialized scatter (~1 us per
-        # lane per iteration on v5e — it dominated the whole trajectory at
-        # ~140 us/iteration for a 128-lane batch); the elementwise select
-        # is pure bandwidth (~8 KB/lane) and vectorizes across the batch
+        # write index lowers the update to a serialized scatter (it once
+        # dominated the whole trajectory); the elementwise select is pure
+        # bandwidth (~8 KB/lane) and vectorizes across the batch
         onehot = (jnp.arange(max_steps) == idx) & do_write
         t_buf = jnp.where(onehot, t_new, c.t_buf)
         y_buf = jnp.where(onehot[:, None], y_new[None, :], c.y_buf)

@@ -6,7 +6,7 @@ the waveform call keeping modes that carry cumulative power >= 1 - eps — and
 notebook cells 2/7/15: explicit ``mode_selection=[(l,m,n)]`` lists with
 ``include_minus_m``).
 
-TPU shape discipline: selection must not create dynamic shapes. We compact to
+Shape discipline: selection must not create dynamic shapes. We compact to
 a static ``k_max`` strongest modes with `jax.lax.top_k` (k_max chosen at trace
 time), then apply the eps cumulative-power criterion as a *mask* over that
 static axis. Downstream kernels scan exactly ``k_max`` modes; masked lanes

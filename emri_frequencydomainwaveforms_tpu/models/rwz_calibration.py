@@ -28,19 +28,19 @@ bilinear on the package's regular (u, e) orbit grid, modes without a
 calibrated row fall back to R = 1 (i.e. the circular-equivalent
 prescription alone).
 
-Evaluation strategy (round 4): both corrections evaluate their tables as
-DENSE CARDINAL-WEIGHT CONTRACTIONS instead of fancy-index gathers —
-mathematically identical interpolation (Keys/Catmull-Rom cardinal for
-B, hat functions for the bilinear R), but gather-free: on this backend
-random gathers run at ~85 M/s and the per-(knot, mode, lane) table
-gathers dominated the rwz prologue (profiled 0.76 ms/wf of 1.47 total at
-batch 128), while the replacement contractions are small f32 einsums
-(the corrections multiply f32-precision amplitudes, so f32 is free).
+Evaluation strategy: both corrections evaluate their tables as DENSE
+CARDINAL-WEIGHT CONTRACTIONS instead of fancy-index gathers —
+mathematically identical interpolation (Keys/Catmull-Rom cardinal), but
+gather-free: small f32 einsums (the corrections multiply f32-precision
+amplitudes, so f32 is free). The gather-free choice was made for the
+accelerator this code was first written for; whether it still pays on a
+GPU is ROADMAP Speed item 4.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from ._rwz_calibration_data import B_TABLE, N_X, X_HI, X_LO
@@ -97,7 +97,7 @@ def rwz_ecc_residual(
     ls: np.ndarray, ms: np.ndarray, ns: np.ndarray, u, e
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """COMPLEX eccentric residual R_lmn(u, e) per mode -> (re, im) pair
-    (TPU-native real arithmetic; (1, 0) where uncalibrated).
+    (real arithmetic; (1, 0) where uncalibrated).
 
     ``u``/``e`` are the trajectory coordinates (u = log(p - p_sep +
     U_SHIFT), models/amplitude_backends.u_of_pe), shaped (...); outputs
@@ -125,7 +125,7 @@ def rwz_ecc_residual(
             _ecc.R_TABLE.get((int(l), int(m), int(n)), ones)
             for l, m, n in zip(np.asarray(ls), np.asarray(ms), np.asarray(ns))
         ]
-    )  # (M, N_U, N_E) complex host-side; split to real pair for TPU
+    )  # (M, N_U, N_E) complex host-side; split to a real pair
     # edge-replicated ghosts (same clamped-stencil semantics as B)
     rows = np.concatenate([rows[:, :1], rows, rows[:, -1:]], axis=1)
     rows = np.concatenate([rows[:, :, :1], rows, rows[:, :, -1:]], axis=2)
@@ -142,7 +142,11 @@ def rwz_ecc_residual(
     we = _keys_cardinal(te[..., None] - nodes_e)  # (..., N_E + 2)
 
     def bicub(rows_j):
-        inner = jnp.einsum("...u,mue->...me", wu, rows_j)
+        # HIGHEST: a default-precision f32 contraction may run in TF32 on
+        # the GPU (~10 mantissa bits)
+        inner = jnp.einsum(
+            "...u,mue->...me", wu, rows_j, precision=jax.lax.Precision.HIGHEST
+        )
         return jnp.sum(inner * we[..., None, :], axis=-1)
 
     r_re = bicub(rows_re)

@@ -49,25 +49,28 @@ residual error is pure SPA truncation (O(1/w)), not spline cross-talk.
 It is also cheaper: t*(f) is a quadratic root per bin (3 cheap Newton steps,
 derivative-consistent), fdot/fddot fall out of the same coefficients.
 
-TPU design:
+Design:
 * per-mode phase splines are LINEAR COMBINATIONS of two shared splines
   (Phi_phi, Phi_r): coefficients combine as ``m*c_phi + n*c_r`` — no
   per-mode fits;
 * the mode axis is a `lax.scan` accumulating 4 real (Nf,) outputs — O(grid)
   memory; bins outside a mode's [f_start, f_end] range or failing the
   monotonicity mask contribute exactly 0;
-* all real arithmetic (TPU has no complex128), MIXED precision: the phase
-  path (segment solve, Phi Horner, Psi = Phi - 2 pi f t*) stays f64 — mul/add
-  only, modest emulation cost — then Psi is reduced mod 2 pi and the
-  transcendental-heavy tail (sin/cos, Bessel, amplitude assembly) runs in
-  native f32. v5e has no f64 hardware; f64 sin/cos are ~100x software calls
-  and dominated the first implementation (27 s/waveform on the 1-yr grid).
-  f32 noise enters only the ~1e-7-level amplitude/phase-mod, orders below
-  the 1e-4 mismatch gate;
+* all real arithmetic, MIXED precision: the phase path (segment solve, Phi
+  Horner, Psi = Phi - 2 pi f t*) stays f64, then Psi is reduced mod 2 pi and
+  the transcendental-heavy tail (sin/cos, Bessel, amplitude assembly) runs
+  in f32. f32 noise enters only the ~1e-7-level amplitude/phase-mod, orders
+  below the 1e-4 mismatch gate;
 * the per-bin segment lookup exploits that ``f_pos`` is sorted: knot edges
   are positioned in the bin grid once per mode (K log Nf) and broadcast by a
   scatter+cumsum, instead of Nf independent binary searches (Nf log K
   serial gathers).
+
+The real (re, im) pairs, the f64/f32 split, the hi/lo f32 pairs of
+`_split_hi_lo` and the gather-free level-1 tables were shaped by the
+accelerator this package was first built for, which had no complex128,
+emulated f64 and slow random gathers. On the GPU each must earn its place
+by measurement: ROADMAP Design items 2 and 3 and Speed item 4.
 
 Scope: the general kernel (`fd_mode_sum`) evaluates each mode's first
 INCREASING monotone run in its main scan slot and — with
@@ -115,6 +118,9 @@ from .modeselect import SelectedModes
 
 _TWO_OVER_SQRT3 = 2.0 / math.sqrt(3.0)
 _TWO_PI = 2.0 * math.pi
+# name scope of the banded kernel's dense pass (main and extra slots): a
+# profiler trace attributes device time to it by this name
+DENSE_PASS_SCOPE = "fd_dense_pass"
 
 
 class FDKernelInputs(NamedTuple):
@@ -306,8 +312,8 @@ def fd_mode_sum(
     negated phase coefficients, conj-flipped amplitudes, and the
     w1n/w2n weight pairs (prepare_fd_inputs must receive w1n/w2n).
 
-    Two-level evaluation (the TPU-native reshaping of the reference's
-    per-bin CUDA loop):
+    Two-level evaluation (a reshaping of the reference's per-bin CUDA
+    loop):
 
     **Level 1 — compression (f64, ~(K-1)*S nodes per mode).** Nodes are
     placed uniformly in t inside each trajectory spline segment, where
@@ -383,8 +389,7 @@ def fd_mode_sum(
         # (algebraically equal to (2/sqrt3)(|fdot|/|fddot|) K13 e^w; C ->
         # e^{i pi/4} away from turnover, -> 0 as w -> 0). w is formed in f64
         # (fdot^3 ~ 1e-33 underflows f32) then cast; the Bessel evaluation
-        # and envelope assembly run in f32 — v5e f64 transcendentals at the
-        # nodes were the dominant cost of the level-1 pass. On a DECREASING
+        # and envelope assembly run in f32. On a DECREASING
         # branch (dirn < 0) the true argument has the opposite sign and the
         # factor is the complex conjugate (asymptote e^{-i pi/4}): evaluate
         # at -|w| and flip the imaginary part.
@@ -473,8 +478,8 @@ def fd_mode_sum(
         dep_32 = (jnp.roll(e_phs, -1) - e_phs).astype(f32)
         # sanitize the dense-pass tables (parity with the banded kernel's
         # pc/ec sanitize): a non-finite IN-WINDOW node — e.g. an envelope
-        # that overflows f32 where the TPU's flush-to-zero kills fdot at a
-        # near-fold node — would otherwise poison its two adjacent
+        # that overflows f32 where fdot underflows at a near-fold node —
+        # would otherwise poison its two adjacent
         # intervals through the node diffs, and the where-mask cannot null
         # NaN afterwards
         ea0_32, dea_32, ep0_32, dep_32 = (
@@ -495,14 +500,13 @@ def fd_mode_sum(
         xi64 = (f_pos - f_lo_b) * jnp.take(inv_df, j)  # f64: xi rounding
         xi = xi64.astype(f32)       # multiplies ~300-rad phase slopes
 
-        # f64 phase Horner (round 5): the Hermite coefficients reach
-        # hundreds of radians (p1 = -2 pi t df_n), so an f32 Horner carries
-        # ~1e-4 rad of rounding — the measured driver of the TPU-side
-        # banded/general cross-check noise (round-4 gate at 1e-3). This
-        # kernel runs on gate/Fisher-sized subsets (the banded kernel is
-        # the scored hot path, with its own exact integer-cycle fix), so
-        # the emulated-f64 cost here is off the scored path; mod-reduce
-        # once at the end, sin/cos stay f32.
+        # f64 phase Horner: the Hermite coefficients reach hundreds of
+        # radians (p1 = -2 pi t df_n), so an f32 Horner carries ~1e-4 rad
+        # of rounding — the driver of the banded/general cross-check noise
+        # before the f64 Horner. This kernel runs on gate/Fisher-sized
+        # subsets (the banded kernel is the scored hot path, with its own
+        # exact integer-cycle fix); mod-reduce once at the end, sin/cos
+        # stay f32.
         psi64 = jnp.take(p0_full, j) + xi64 * (
             jnp.take(p1, j) + xi64 * (jnp.take(p2, j) + xi64 * jnp.take(p3, j))
         )
@@ -611,9 +615,8 @@ def fd_mode_sum_uniform(
 
     The performance-critical variant (the default fftshift grid and the
     ``freq[::k]`` downsampled likelihood grids are uniform). Exploits two
-    structural facts measured on TPU (v5e): random gathers run at ~85M/s
-    (~12 ns each, 100x slower than VPU flops) and a mode's band covers only
-    a few percent of the full grid. Design:
+    structural facts: random gathers are far slower than arithmetic, and a
+    mode's band covers only a few percent of the full grid. Design:
 
     * **Band windowing**: per mode, interpolation nodes are placed only over
       its band — every ``bins_per_run``-th bin starting at the run containing
@@ -635,7 +638,7 @@ def fd_mode_sum_uniform(
 
     band_offsets: optional per-mode window start runs, (k_max,) int32.
     CRITICAL under vmap: per-lane (traced, batched) window offsets force XLA
-    to lower the read-modify-write as a scatter (~100x slower); offsets
+    to lower the read-modify-write as a scatter; offsets
     passed here UNBATCHED (vmap in_axes=None / closed-over constants, e.g.
     computed once per walker batch from a representative source with a
     margin) keep it a true dynamic slice. When omitted, offsets are derived
@@ -729,8 +732,8 @@ def fd_mode_sum_uniform(
     # slot_unroll: accumulate the main slots in an UNROLLED python loop
     # instead of a lax.scan. The scan threads the 4 x pad_len f32
     # accumulators through its carry, and XLA materializes carry copies at
-    # the loop boundary — measured ~0.18 ms/wf at the bench configuration
-    # (the dense flops themselves are ~0.01 ms). Unrolled, each slot's
+    # the loop boundary, which cost more than the dense flops themselves
+    # when it was first profiled. Unrolled, each slot's
     # read-modify-write aliases the previous buffer and the whole chain
     # fuses (the extras path below always ran unrolled for this reason).
     # Default: on for banded windows (small per-slot workspace), off for
@@ -752,21 +755,22 @@ def fd_mode_sum_uniform(
         xs = (pc, nc, ec, f_start_all, f_end_all, w_s[0], w_s[1], w_s[2],
               w_s[3], live_s, g0_s)
 
-        if slot_unroll:
-            for s in range(pc.shape[0]):
-                carry, _ = _dense_slot_accumulate(
-                    carry, tuple(x[s] for x in xs),
-                    f0, df, r, run_df, g_band_s, f_pos_dtype,
+        with jax.named_scope(DENSE_PASS_SCOPE):
+            if slot_unroll:
+                for s in range(pc.shape[0]):
+                    carry, _ = _dense_slot_accumulate(
+                        carry, tuple(x[s] for x in xs),
+                        f0, df, r, run_df, g_band_s, f_pos_dtype,
+                    )
+                return carry
+
+            def body(carry, mode):
+                return _dense_slot_accumulate(
+                    carry, mode, f0, df, r, run_df, g_band_s, f_pos_dtype
                 )
+
+            carry, _ = jax.lax.scan(body, carry, xs, unroll=scan_unroll)
             return carry
-
-        def body(carry, mode):
-            return _dense_slot_accumulate(
-                carry, mode, f0, df, r, run_df, g_band_s, f_pos_dtype
-            )
-
-        carry, _ = jax.lax.scan(body, carry, xs, unroll=scan_unroll)
-        return carry
 
     zero = jnp.zeros((pad_len,), f32)
     carry = scan_slots(
@@ -794,22 +798,21 @@ def fd_mode_sum_uniform(
             g0_x = jnp.floor((f_start_x - f0) / run_df).astype(jnp.int32)
         g0_x = jnp.clip(g0_x, 0, g_total)
         # few extra slots: UNROLLED accumulation (a second lax.scan forces
-        # copies of the 4 x pad_len f32 carry between loop bodies — measured
-        # ~10% of the whole waveform on v5e; the unrolled form fuses)
+        # copies of the 4 x pad_len f32 carry between loop bodies; the
+        # unrolled form fuses)
         pc_x, nc_x, ec_x, fst_x, fen_x = _level1_uniform_tables(
             ex[0], ex[1], ex[2], ex[3], g0_x, ex[4], ex[5], ex[6],
             t_knots, f0, df, r, g_band_x + 1, run_df, cycle_split=cyc,
         )
-        o1r, o1i, o2r, o2i = carry
-        for s in range(pc_x.shape[0]):
-            (o1r, o1i, o2r, o2i), _ = _dense_slot_accumulate(
-                (o1r, o1i, o2r, o2i),
-                (pc_x[s], nc_x[s], ec_x[s], fst_x[s], fen_x[s],
-                 ex_w[0][s], ex_w[1][s], ex_w[2][s], ex_w[3][s],
-                 ex[7][s], g0_x[s]),
-                f0, df, r, run_df, g_band_x, f_pos_dtype,
-            )
-        carry = (o1r, o1i, o2r, o2i)
+        with jax.named_scope(DENSE_PASS_SCOPE):
+            for s in range(pc_x.shape[0]):
+                carry, _ = _dense_slot_accumulate(
+                    carry,
+                    (pc_x[s], nc_x[s], ec_x[s], fst_x[s], fen_x[s],
+                     ex_w[0][s], ex_w[1][s], ex_w[2][s], ex_w[3][s],
+                     ex[7][s], g0_x[s]),
+                    f0, df, r, run_df, g_band_x, f_pos_dtype,
+                )
 
     o1r, o1i, o2r, o2i = carry
     if _return_padded:
@@ -869,9 +872,8 @@ def _dense_slot_accumulate(carry, mode, f0, df, r, run_df, g_band_s, f_pos_dtype
     c_re = amp_d * jnp.cos(psi_d)
     c_im = amp_d * jnp.sin(psi_d)
 
-    # band mask in int32 bin-index space: the f64 per-bin frequency grid
-    # (g_band, r) and its two f64 compares are emulated ~5x on this chip
-    # and measured as a top cost of the dense pass. The band limits are
+    # band mask in int32 bin-index space instead of an f64 per-bin
+    # frequency grid (g_band, r) with two f64 compares. The band limits are
     # per-slot SCALARS, so fold them to bin indices once (f64, 2 scalars)
     # and compare the shared int32 local-index grid against them — exact:
     # bin i is kept iff i >= ceil((f_start - f0)/df) and i <= floor(...).
@@ -906,10 +908,15 @@ def _dense_slot_accumulate(carry, mode, f0, df, r, run_df, g_band_s, f_pos_dtype
 
 
 def _split_hi_lo(x: jax.Array) -> tuple[jax.Array, jax.Array]:
-    """f64 -> exact (hi, lo) f32 pair with x == hi + lo in f64."""
-    hi = x.astype(jnp.float32)
-    lo = (x - hi.astype(x.dtype)).astype(jnp.float32)
-    return hi, lo
+    """f64 -> (hi, lo) f32 pair with x == hi + lo to ~2^-48 relative.
+
+    hi is rounded by an explicit `reduce_precision`, not by a convert
+    round trip: XLA's GPU compiler may drop a f64 -> f32 -> f64 convert
+    pair (excess precision is allowed by default), which left lo = 0 and
+    cost the banded kernel a 7e-3 rel-L2 error on an H100.
+    """
+    hi = jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=23)
+    return hi.astype(jnp.float32), (x - hi).astype(jnp.float32)
 
 
 def _polar_envelope(e_re, e_im, anchor=None):
@@ -923,7 +930,7 @@ def _polar_envelope(e_re, e_im, anchor=None):
     approximately: there consecutive node phases jump by ~pi, and a
     2pi-centered unwrap must pick the sweep direction (+pi or -pi) by
     ulp-level rounding of the atan2 inputs — a DEVICE-DEPENDENT branch
-    (measured: 1.5e-3 TPU-vs-CPU divergence of both FD kernels at the
+    (it once made both FD kernels diverge between two backends at the
     bench config) that also draws the interpolated envelope through the
     flip at full modulus. The signed-modulus form crosses zero like the
     Cartesian representation (exact for real envelopes), keeps polar's
@@ -987,19 +994,20 @@ def _level1_uniform_tables(
 ):
     """Gather-free level-1 node evaluation for ALL slots at once.
 
-    The TPU-shaped replacement for per-node binary search + table gathers
-    (measured ~210 ns/node on v5e — the round-1 bottleneck): because the
-    node grid is UNIFORM in f and the windowed knot frequencies are
-    monotone, the node->segment assignment is a counting problem. We build
-    the (node, boundary) compare matrix over the ORIENTED window (traversed
-    ascending in f: forward in t on increasing branches, reverse on
-    decreasing ones), difference it into an exact one-hot selector, and
-    fetch every per-segment quantity with ONE MXU matmul (~4 ns/node
-    measured) against the orientation-permuted segment table. f64 phase
-    inputs ride the matmul as exact (hi, lo) f32 pairs: the selector rows
-    are exactly one 1.0 and the MXU accumulates in f32, so selection is
-    bit-exact and hi + lo reconstructs the f64 coefficient to double-float
-    precision (all this device's emulated f64 carries anyway).
+    A gather-free replacement for per-node binary search + table gathers:
+    because the node grid is UNIFORM in f and the windowed knot
+    frequencies are monotone, the node->segment assignment is a counting
+    problem. We build the (node, boundary) compare matrix over the
+    ORIENTED window (traversed ascending in f: forward in t on increasing
+    branches, reverse on decreasing ones), difference it into an exact
+    one-hot selector, and fetch every per-segment quantity with ONE matmul
+    against the orientation-permuted segment table. f64 phase inputs ride
+    the matmul as exact (hi, lo) f32 pairs: the selector rows are exactly
+    one 1.0 and the HIGHEST-precision product is full f32 (exact for a
+    one-hot selector on the GPU as on the CPU; a default-precision one may
+    run in TF32), so selection is bit-exact and hi + lo reconstructs the
+    f64 coefficient to double-float precision (ROADMAP Speed item 4 asks
+    whether a plain f64 gather beats this on the GPU).
 
     Returns per-run f32 tables for the dense pass: phase Hermite pc
     (S, G, 4), integer 2pi-cycle counts nc (S, G, 3) int32 (or None, see
@@ -1010,16 +1018,17 @@ def _level1_uniform_tables(
     per-run phase coefficients p1..p3 reach hundreds of radians
     (p1 = -2 pi t* run_df ~ 400 rad at 1 yr x 64-bin runs), so a plain
     f32 dense Horner carries ~|p| * 2^-24 ~ 1e-4 rad of rounding — the
-    measured source of the rwz banded/general TPU disagreement (round-4
-    gate at 1e-3). Since the dense pass evaluates at EXACT lattice points
+    measured source of the rwz banded/general disagreement before the
+    split (gate at 1e-3). Since the dense pass evaluates at EXACT lattice points
     xi = b/r (b integer, r a power of two), each coefficient splits as
     p_i = q_i + 2 pi n_i with n_i = round(p_i / 2 pi) int32 and
     |q_i| <= pi: the integer part contributes
     2 pi (n1 b r^2 + n2 b^2 r + n3 b^3) / r^3 mod 2 pi — EXACT int32
     arithmetic in the dense pass — and the f32 polynomial keeps only
     O(1)-rad coefficients (~2e-7 rad rounding). pc holds the residuals
-    q and nc the cycle counts. With ``cycle_split=False`` (Pallas path)
-    pc holds the raw f32 coefficients and nc is None.
+    q and nc the cycle counts. With ``cycle_split=False`` (runs of a
+    length that is not a power of two) pc holds the raw f32 coefficients
+    and nc is all zeros.
     """
     f32 = jnp.float32
     k = t_knots.shape[0]
@@ -1046,9 +1055,8 @@ def _level1_uniform_tables(
     win_len = (k_hi - k_lo).astype(jnp.int32)  # segments in window
     jj = jnp.arange(1, k - 1)  # oriented knot numbers 1..K-2
     idx_bnd = jnp.where(inc, k_lo[:, None] + jj[None, :], k_hi[:, None] - jj[None, :])
-    # boundary gather + compare in f32: the f64 gather lowers to TWO f32
-    # word-gathers on this chip (~10 ns/row x Mk x (K-2) — measured as the
-    # single largest level-1 op). Segment assignment only steers which
+    # boundary gather + compare in f32 (an f64 gather moves twice the
+    # bytes). Segment assignment only steers which
     # C2-continuous cubic the Newton solve starts from, so an f32-ulp tie
     # (~6e-8 relative, vs node spacing ~1e-4 of f) at worst seeds from the
     # neighboring segment, which the seed clip already tolerates.
@@ -1186,12 +1194,11 @@ def _level1_uniform_tables(
     p3_plain = -2.0 * dpsi + d_lo + d_hi
 
     # anchored Hermite: cubic in u = (xi - xa)/(xb - xa) through the
-    # clamped anchors, composed back into an xi-polynomial (dense pass and
-    # Pallas kernel stay unchanged). Interior intervals have xa = 0, xb = 1
-    # and reproduce the plain form. The f64 spine stops at the DIFFERENCES
-    # (dpsi, q0 mod 2pi, anchors); the composition arithmetic runs in f32 —
-    # v5e f64 is emulated and this per-interval tail measured ~10% of the
-    # whole waveform when kept in f64. Residual f32 error: ~|alpha|^3-
+    # clamped anchors, composed back into an xi-polynomial (the dense pass
+    # stays unchanged). Interior intervals have xa = 0, xb = 1 and
+    # reproduce the plain form. The f64 spine stops at the DIFFERENCES
+    # (dpsi, q0 mod 2pi, anchors); the composition arithmetic runs in f32
+    # (ROADMAP Design item 2). Residual f32 error: ~|alpha|^3-
     # amplified rounding ~2e-4 rad confined to the few edge intervals.
     xa = ((f_eff[:, :-1] - f_node[:, :-1]) / run_df).astype(f32)
     xb = ((f_eff[:, 1:] - f_node[:, :-1]) / run_df).astype(f32)
@@ -1333,173 +1340,9 @@ def _level1_uniform_tables(
     return pc, nc, ec, f_start, f_end
 
 
-def fd_mode_sum_uniform_pallas(
-    inp: FDKernelInputs,
-    f0: float,
-    df: float,
-    nf: int,
-    *,
-    bins_per_run: int = 64,
-    band_runs: int | None = None,
-    band_offsets: jax.Array | None = None,
-    interpret: bool = False,
-) -> tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
-    """Pallas-accelerated variant of `fd_mode_sum_uniform`.
-
-    Level 1 (node math) runs vectorized over modes in XLA; the dense
-    evaluation + banded window accumulation runs in the Pallas kernel
-    (`ops.pallas.fd_dense`), which owns the HBM window DMA — no scatter
-    lowering, no scan-carry copies. ``interpret=True`` runs the kernel in
-    the Pallas interpreter (CPU testing).
-    """
-    from ..ops.pallas.fd_dense import fd_dense_accumulate
-
-    t_knots = inp.t_knots
-    r = bins_per_run
-    g_total = -(-nf // r)
-    g_band = g_total if band_runs is None else min(band_runs, g_total)
-    # Mosaic lane tiling: window length and offsets in 128-run units
-    g_band = -(-g_band // 128) * 128
-    n_nodes = g_band + 1
-    g_pad = -(-(g_total + g_band) // 128) * 128
-    run_df = r * df
-
-    cphi_all = (
-        inp.m_sel[:, None, None] * inp.c_phi_phi[None]
-        + inp.n_sel[:, None, None] * inp.c_phi_r[None]
-    )
-    f_knots_all = (
-        inp.m_sel[:, None] * inp.f_phi_knots[None, :] + inp.n_sel[:, None] * inp.f_r_knots[None, :]
-    )
-    if band_offsets is None:
-        g0_all = jnp.floor((f_knots_all[:, 0] - f0) / run_df).astype(jnp.int32)
-    else:
-        g0_all = jnp.asarray(band_offsets, jnp.int32)
-    # round DOWN to 128-run boundaries (extends coverage below the band;
-    # band_runs must include >=128 runs of slack above the band width)
-    g0_all = jnp.clip((g0_all // 128) * 128, 0, g_total)
-
-    k_max = cphi_all.shape[0]
-    pc, _nc, ec, fst64, fen64 = _level1_uniform_tables(
-        cphi_all, inp.ar_c, inp.ai_c, f_knots_all, g0_all,
-        inp.inc_lo, inp.inc_hi, jnp.ones((k_max,), jnp.int32),
-        t_knots, f0, df, r, n_nodes, run_df,
-    )
-    f32 = jnp.float32
-    fst, fen = fst64.astype(f32), fen64.astype(f32)
-    scalars = jnp.stack(
-        [
-            fst,
-            fen,
-            inp.inc_live.astype(f32),
-            inp.w1_re.astype(f32),
-            inp.w1_im.astype(f32),
-            inp.w2_re.astype(f32),
-            inp.w2_im.astype(f32),
-            jnp.zeros_like(fst),
-        ],
-        axis=-1,
-    )
-    out3 = fd_dense_accumulate(
-        pc.swapaxes(1, 2), ec.swapaxes(1, 2), scalars, g0_all,
-        r=r, f0=f0, df=df, g_pad=g_pad, interpret=interpret,
-    )
-    # (4, r, G_pad): bin g*r + rr at [:, rr, g] -> transpose + flatten
-    out = out3.transpose(0, 2, 1).reshape(4, -1)
-    dt_out = t_knots.dtype
-    return (
-        out[0, :nf].astype(dt_out),
-        out[1, :nf].astype(dt_out),
-        out[2, :nf].astype(dt_out),
-        out[3, :nf].astype(dt_out),
-    )
-
-
-def fd_mode_sum_uniform_pallas_batched(
-    inp_b: FDKernelInputs,  # every field with a leading batch axis
-    f0: float,
-    df: float,
-    nf: int,
-    *,
-    bins_per_run: int = 64,
-    band_runs: int | None = None,
-    band_offsets: jax.Array | None = None,
-    interpret: bool = False,
-):
-    """Walker-batched Pallas FD summation -> 4 arrays of (B, nf).
-
-    The batch rides the Pallas GRID (see
-    `ops.pallas.fd_dense.fd_dense_accumulate_batched`); window offsets are
-    SHARED across the batch and must be supplied (compute once via
-    `models.waveform.band_offsets_for` from a representative source).
-    """
-    from ..ops.pallas.fd_dense import fd_dense_accumulate_batched
-
-    if band_offsets is None:
-        raise ValueError("batched pallas path requires shared band_offsets")
-
-    t_knots0 = inp_b.t_knots[0]
-    r = bins_per_run
-    g_total = -(-nf // r)
-    g_band = g_total if band_runs is None else min(band_runs, g_total)
-    g_band = -(-g_band // 128) * 128
-    n_nodes = g_band + 1
-    g_pad = -(-(g_total + g_band) // 128) * 128
-    run_df = r * df
-
-    g0_all = jnp.clip((jnp.asarray(band_offsets, jnp.int32) // 128) * 128, 0, g_total)
-
-    def per_element(inp: FDKernelInputs):
-        cphi_all = (
-            inp.m_sel[:, None, None] * inp.c_phi_phi[None]
-            + inp.n_sel[:, None, None] * inp.c_phi_r[None]
-        )
-        f_knots_all = (
-            inp.m_sel[:, None] * inp.f_phi_knots[None, :]
-            + inp.n_sel[:, None] * inp.f_r_knots[None, :]
-        )
-        k_max = cphi_all.shape[0]
-        pc, _nc, ec, fst64, fen64 = _level1_uniform_tables(
-            cphi_all, inp.ar_c, inp.ai_c, f_knots_all, g0_all,
-            inp.inc_lo, inp.inc_hi, jnp.ones((k_max,), jnp.int32),
-            inp.t_knots, f0, df, r, n_nodes, run_df,
-        )
-        f32 = jnp.float32
-        fst, fen = fst64.astype(f32), fen64.astype(f32)
-        scalars = jnp.stack(
-            [
-                fst,
-                fen,
-                inp.inc_live.astype(f32),
-                inp.w1_re.astype(f32),
-                inp.w1_im.astype(f32),
-                inp.w2_re.astype(f32),
-                inp.w2_im.astype(f32),
-                jnp.zeros_like(fst),
-            ],
-            axis=-1,
-        )
-        return pc.swapaxes(1, 2), ec.swapaxes(1, 2), scalars
-
-    pc_b, ec_b, sc_b = jax.vmap(per_element)(inp_b)
-    out4 = fd_dense_accumulate_batched(
-        pc_b, ec_b, sc_b, g0_all, r=r, f0=f0, df=df, g_pad=g_pad, interpret=interpret
-    )
-    out = out4.transpose(0, 1, 3, 2).reshape(out4.shape[0], 4, -1)
-    dt_out = t_knots0.dtype
-    return (
-        out[:, 0, :nf].astype(dt_out),
-        out[:, 1, :nf].astype(dt_out),
-        out[:, 2, :nf].astype(dt_out),
-        out[:, 3, :nf].astype(dt_out),
-    )
-
-
 __all__ = [
     "FDKernelInputs",
     "prepare_fd_inputs",
     "fd_mode_sum",
     "fd_mode_sum_uniform",
-    "fd_mode_sum_uniform_pallas",
-    "fd_mode_sum_uniform_pallas_batched",
 ]

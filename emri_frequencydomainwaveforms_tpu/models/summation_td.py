@@ -6,7 +6,7 @@ amplitude/phase knots, upsample to the dense ``dt`` grid, and sum
 ``h(t) = sum_lmn A_lmn(t) (-2)Y_lm e^{-i(m Phi_phi + n Phi_r)}`` including
 the (-m, -n) equatorial partners; kwargs ``pad_output``/``odd_len``).
 
-TPU design:
+Design:
 * one pair of phase splines (Phi_phi, Phi_r) serves every mode — per-mode
   phases are linear combinations ``m*Phi_phi + n*Phi_r`` formed on the dense
   grid, so the spline work is O(2) not O(modes);
@@ -14,7 +14,10 @@ TPU design:
   once and shared by every spline evaluation;
 * the mode axis is a `lax.scan` accumulating (h_plus, h_cross) — memory stays
   O(grid), not O(modes x grid), and XLA fuses each iteration into a handful
-  of VPU passes; all arithmetic is real f64 pairs (TPU has no complex128).
+  of elementwise passes; all arithmetic is real f64 pairs (a choice made
+  for the accelerator this package was first built for, which had no
+  complex128, and f64 sincos emulated in software: ROADMAP Design items 2
+  and 3).
 """
 
 from __future__ import annotations
@@ -84,7 +87,6 @@ def td_mode_sum(
         hp, hc = carry
         ar_ci, ai_ci, m_i, n_i, sg, ypr_i, ypi_i, ymr_i, ymi_i, w_i = mode
         # f64 phase combination (mul/add), then mod-2pi -> f32 sincos
-        # (v5e has no f64 hardware; f64 transcendentals are ~100x software)
         phase = m_i * phi_phi_g + n_i * phi_r_g
         phase32 = (phase - two_pi * jnp.round(phase * (1.0 / two_pi))).astype(f32)
         c = jnp.cos(phase32)

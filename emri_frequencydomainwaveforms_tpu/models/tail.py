@@ -33,7 +33,7 @@ Tutorial_FD_construction_single_mode.ipynb` cell 2).
 
 Numerics: complex log-gamma by the g = 7, n = 9 Lanczos approximation
 (double-precision accurate for Re z >= 1; here Re z = l + 1 >= 3),
-implemented on (re, im) pairs — no complex dtype, TPU double-float safe.
+implemented on (re, im) pairs — no complex dtype (ROADMAP Design item 3).
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Quadrature inspiral trajectory: parallel-in-time via the p-coordinate.
 
-A TPU-shaped alternative to the sequential DP5 integrator
+A parallel-in-time alternative to the sequential DP5 integrator
 (`models.integrate`): the adaptive time-stepper is a ~140-iteration
-`lax.while_loop` whose sequential depth — not its flops — sets its cost on
-TPU. This module removes nearly all of that depth by changing the
+`lax.while_loop` whose sequential depth — not its flops — sets its cost
+on an accelerator. This module removes nearly all of that depth by changing the
 independent variable to the semi-latus rectum p (monotone decreasing along
 the inspiral):
 

@@ -333,7 +333,7 @@ def fd_scalar_on_grid(pro: WaveformPrologue, table: ModeTable, freq: jax.Array,
     Evaluates the kernel once at |f| per bin (both branches come out of the
     same pass) and assembles htilde(f>0) = pos, htilde(f<0) = conj(negc),
     htilde(0) = 0 — works for symmetric full grids and arbitrary downsampled
-    ``f_arr`` alike. Returns (re, im) f64 arrays (TPU-safe).
+    ``f_arr`` alike. Returns (re, im) f64 arrays.
     """
     f_abs = jnp.maximum(jnp.abs(freq), 1e-300)
     # the two-level kernel requires ascending frequencies; sort + unsort
@@ -419,7 +419,7 @@ class FrozenSelection(NamedTuple):
     representative source; holds the slot -> mode map (``forced_idx``), the
     shared window offsets, and the window geometry. Passing per-lane
     (traced) offsets to the banded kernel lowers its window accumulation
-    to a scatter (~100x slower) AND per-lane eps selection shifts slot
+    to a scatter (far slower) AND per-lane eps selection shifts slot
     identity whenever a marginal mode crosses the eps boundary — freezing
     both is the production configuration, validated per batch via
     `coverage_of` (the eps semantic: the frozen set must carry >= 1 - eps

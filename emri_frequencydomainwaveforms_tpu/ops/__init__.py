@@ -1,5 +1,5 @@
-"""Numerics substrate: splines, tridiagonal solves, special functions, 2-D
-interpolation, and the Pallas TPU kernels."""
+"""Numerics substrate: splines, tridiagonal solves, special functions and
+2-D interpolation."""
 
 from .bessel import bessel_jn, kve_one_third, kve_one_third_imag
 from .cubic_spline import (

@@ -4,7 +4,7 @@ The reference's FD construction applies an Airy-type correction near the
 stationary-phase turnover using ``scipy.special.kv(1/3, arg) * exp(arg)`` with
 a purely imaginary ``arg = -2*pi*i*fdot^3/(3*fddot^2)`` (reference
 ``Tutorial_FD_construction_single_mode.ipynb`` cell 26). scipy is not jittable
-and TPU has no complex Bessel primitive, so we implement the scaled modified
+and XLA has no complex Bessel primitive, so we implement the scaled modified
 Bessel ``K_{1/3}(z) e^z`` directly:
 
 * small ``|z|``: ascending series through ``I_{+-1/3}``,
@@ -84,8 +84,8 @@ def kve_one_third(z: jax.Array) -> jax.Array:
 def kve_one_third_imag(w: jax.Array) -> tuple[jax.Array, jax.Array]:
     """``K_{1/3}(i w) * exp(i w)`` for real ``w``, in real arithmetic.
 
-    TPU does not support complex128 (not even as a transfer dtype), so the
-    production FD kernel calls this real-pair specialization: the SPA
+    The production FD kernel calls this real-pair specialization (real
+    arithmetic throughout, ROADMAP Design item 3): the SPA
     correction argument ``-2*pi*i*fdot^3/(3*fddot^2)`` is purely imaginary,
     ``z = i w``. Returns ``(re, im)`` as float arrays matching ``w``.
 

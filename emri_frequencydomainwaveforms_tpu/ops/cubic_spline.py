@@ -1,6 +1,6 @@
 """Batched natural cubic splines, fully jittable / vmappable.
 
-TPU-native equivalent of the reference engine's
+JAX equivalent of the reference engine's
 ``few.summation.interpolatedmodesum.CubicSplineInterpolant`` (CUDA/cuSPARSE
 upstream; behavior pinned by reference ``Tutorial_FD_construction_single_mode.ipynb``
 cells 8-9 and 20-21: fit at sparse trajectory knots with shape

@@ -1,6 +1,6 @@
 """Bicubic interpolation on regular 2-D grids (jittable, batched).
 
-TPU-native counterpart of the reference engine's C++ bicubic amplitude
+JAX counterpart of the reference engine's C++ bicubic amplitude
 interpolant (``few.amplitude.interp2dcubicspline.Interp2DAmplitude``,
 reference notebook cell 2). Uses Catmull-Rom bicubic patches (local 4x4
 stencils — gather-light, no global solves, C^1): amplitude surfaces are
@@ -77,13 +77,13 @@ def interp2d_bicubic_dense(
     indices, same clamps, same CR weights — differences are reduction-order
     ULPs only; pinned by ``tests/test_interp2d_dense.py``): the 4-point
     stencil weights are scattered into dense cardinal weight vectors over
-    the full grid axes and contracted against the table with einsums. On
-    TPU this trades 16 random gathers per query for two dense contractions.
-    Worth it ONLY when the query batch is large relative to the table (the
+    the full grid axes and contracted against the table with einsums. This
+    trades 16 random gathers per query for two dense contractions, which
+    pays only when the query batch is large relative to the table (the
     rwz-calibration pattern); for tiny per-step query batches against the
-    (96, 49) flux grid inside the sequential DP5 while_loop it is a
-    measured 22% whole-bench LOSS (round-4 verdict) — the contraction is
-    latency-bound exactly where the gathers were. Stays in the table dtype.
+    (96, 49) flux grid inside the sequential DP5 while_loop the contraction
+    is latency-bound exactly where the gathers were. It is off the
+    production path (ROADMAP Design item 7). Stays in the table dtype.
 
     Non-finite grid entries are sanitized to 0 before the contraction:
     unlike the gather path (which only ever touches the 4x4 stencil), the
@@ -115,8 +115,10 @@ def interp2d_bicubic_dense(
     values = jnp.where(jnp.isfinite(values), values, jnp.zeros((), dt))
     vflat = values.reshape(nx, ny, -1)
     # y-inner like the gather path, then x — two dense contractions
-    tmp = jnp.einsum("...l,klc->...kc", wvy, vflat)
-    out = jnp.einsum("...k,...kc->...c", wvx, tmp)
+    # HIGHEST: a default-precision f32 contraction may run in TF32 on the GPU
+    hi = jax.lax.Precision.HIGHEST
+    tmp = jnp.einsum("...l,klc->...kc", wvy, vflat, precision=hi)
+    out = jnp.einsum("...k,...kc->...c", wvx, tmp, precision=hi)
     return out.reshape(out.shape[:-1] + values.shape[2:])
 
 

@@ -1,6 +1,6 @@
 """Batched tridiagonal solver (Thomas algorithm) as a `lax.scan`.
 
-TPU-native replacement for the cuSPARSE tridiagonal solve the reference's
+JAX replacement for the cuSPARSE tridiagonal solve the reference's
 external engine uses inside ``few.summation.interpolatedmodesum.CubicSplineInterpolant``
 (behavior pinned at reference ``Tutorial_FD_construction_single_mode.ipynb``
 cells 8-9, 20-21). The scan is sequential in the knot axis (~100 knots) but

@@ -2,7 +2,7 @@
 
 The reference is single-process single-GPU (SURVEY §2.5: no NCCL/MPI; its
 only "parallelism" is in-process walker batching + a CPU multiprocessing
-pool). The TPU-native scaling axes are:
+pool). The scaling axes here are:
 
 * **walkers** (data-parallel): each chip evaluates the likelihood of its
   walker shard; ensemble-move logic is cheap and uses XLA collectives

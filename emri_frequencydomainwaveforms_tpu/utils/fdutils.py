@@ -15,9 +15,9 @@ at reference ``FDutils.py:35-178``):
   (``FDutils.py:105-178``).
 
 These are host-side analysis utilities (run once per injection, not in the
-sampler hot loop), so they use numpy FFTs — complex128 never needs to touch
-the TPU. The Sokal autocorrelation tools the reference keeps here live in
-``utils.autocorr``.
+sampler hot loop), so they use numpy FFTs; `rfft_at_bins` is the jittable
+spectrum of the TD likelihood template. The Sokal autocorrelation tools the
+reference keeps here live in ``utils.autocorr``.
 """
 
 from __future__ import annotations
@@ -38,48 +38,17 @@ def get_convolution(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return fftconvolve(np.hstack((a[1:], a)), b, mode="valid") / len(b)
 
 
-def dft_at_bins(h, bin_idx, n_t: int, chunk: int = 64):
-    """DFT of a real series at selected bins (jittable, TPU-safe).
+def rfft_at_bins(h, bin_idx):
+    """``rfft(h)[..., bin_idx]`` of a real series as an ``(re, im)`` pair.
 
-    Returns ``(re, im)`` equal to ``rfft(h)[bin_idx]`` for a length-``n_t``
-    series. Replaces ``jnp.fft.rfft`` in device code: XLA's TPU FFT of the
-    odd default grid length (reference ``odd_len=True``) lowers to a dense
-    (N, N) DFT matrix — a ~400 GB allocation for 1-yr signals. Here the
-    needed bins are evaluated directly as chunked (chunk, N) matmuls with
-    EXACT modular phase arguments (k*t mod N in int64, so f32 trig sees
-    angles in [-2 pi, 0]). Batched ``h`` (..., N) rides the matmul.
+    Jittable; an f64 series is transformed in complex128, so the result
+    matches ``numpy.fft.rfft`` to f64 rounding at any length, odd ones
+    included.
     """
-    import jax
     import jax.numpy as jnp
 
-    bin_idx = jnp.asarray(bin_idx, jnp.float64)
-    n_bins = bin_idx.shape[0]
-    pad = (-n_bins) % chunk
-    idx_p = jnp.concatenate([bin_idx, jnp.zeros((pad,))]) if pad else bin_idx
-    t_idx = jnp.arange(n_t, dtype=jnp.float64)
-    h32 = jnp.asarray(h).astype(jnp.float32)
-
-    def one_chunk(kc):
-        # k*t <= (n/2)*n < 2^53: exact in f64 (int64 would be emulated and
-        # ~100x slower on TPU); the mod keeps the product an exact integer
-        kt = kc[:, None] * t_idx[None, :]
-        kn = kt - n_t * jnp.floor(kt * (1.0 / n_t))
-        # f32 angles: kn < n_t <= 2^24 exact in f32, |ang| <= 2 pi, so f32
-        # trig costs only ~1e-7 rad (f64 transcendentals are software calls)
-        ang = kn.astype(jnp.float32) * jnp.float32(-2.0 * np.pi / n_t)
-        c = jnp.cos(ang)
-        sn = jnp.sin(ang)
-        re = jnp.tensordot(c, h32, axes=((1,), (h32.ndim - 1,)))
-        im = jnp.tensordot(sn, h32, axes=((1,), (h32.ndim - 1,)))
-        return re, im
-
-    re, im = jax.lax.map(one_chunk, idx_p.reshape(-1, chunk))
-    re = re.reshape((-1,) + h32.shape[:-1])[:n_bins]
-    im = im.reshape((-1,) + h32.shape[:-1])[:n_bins]
-    # bin axis leads; move it last to match h's batch layout
-    re = jnp.moveaxis(re, 0, -1)
-    im = jnp.moveaxis(im, 0, -1)
-    return re.astype(jnp.float64), im.astype(jnp.float64)
+    spec = jnp.fft.rfft(jnp.asarray(h), axis=-1)[..., jnp.asarray(bin_idx)]
+    return spec.real, spec.imag
 
 
 def get_fft_td_windowed(signal, window, dt: float):
@@ -152,6 +121,7 @@ class get_fd_waveform_fromTD:
 
 __all__ = [
     "get_convolution",
+    "rfft_at_bins",
     "get_fft_td_windowed",
     "get_fd_windowed",
     "get_fd_waveform_fromFD",

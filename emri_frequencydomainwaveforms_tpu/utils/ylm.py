@@ -1,4 +1,4 @@
-"""Spin-weighted spherical harmonics (s = -2), TPU-native.
+"""Spin-weighted spherical harmonics (s = -2) in JAX.
 
 Replaces the reference engine's ``few.utils.ylm.GetYlms`` (used at reference
 ``Tutorial_FD_construction_single_mode.ipynb`` cells 3, 5, 23, 26:
@@ -15,8 +15,8 @@ The (l, m)-dependent coefficients and integer exponents are precomputed
 host-side into dense padded tables, so the device side is a small
 polynomial-in-(cos, sin) contraction — jittable, vmappable, and autodiffable
 (the angles are sampled parameters, so Fisher-matrix derivatives flow
-through here). Results are returned as (re, im) f64 pairs; TPU has no
-complex128.
+through here). Results are returned as (re, im) f64 pairs (ROADMAP
+Design item 3).
 
 Verified cases: -2Y_22 = sqrt(5/64pi)(1+cos th)^2 e^{2i phi},
 -2Y_20 = sqrt(15/32pi) sin^2 th.

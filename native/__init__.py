@@ -1,6 +1,6 @@
 """ctypes bindings + build for the native (C++) host components.
 
-The TPU compute path is JAX/XLA; these native pieces fill the roles the
+The device compute path is JAX/XLA; these native pieces fill the roles the
 reference keeps in C++ (its trajectory integrator) for host-side work:
 golden cross-validation of the jittable integrator and fast one-off solves
 on CPU-only machines. Built on demand with g++ (no pybind11 dependency —

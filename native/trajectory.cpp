@@ -5,7 +5,7 @@
 // through the exact Jacobian) integrated with an adaptive Dormand-Prince
 // 5(4) stepper. Mirrors the role of the C++ integrator inside the reference
 // engine (few.trajectory, reference SURVEY §2.4) in THIS architecture:
-//   * golden cross-validation of the jittable TPU integrator (tests),
+//   * golden cross-validation of the jittable JAX integrator (tests),
 //   * fast one-off host solves (duration root-finds at CLI startup on
 //     CPU-only machines) without pulling in XLA.
 //

@@ -3,7 +3,7 @@
 Ports the reference's trans-dimensional sampler suite
 (``Eryn/eryn/tests/test_eryn.py``: ``test_rj``:192,
 ``test_rj_multiple_branches``:304, ``test_gibbs_sampling``:455,
-``test_mt``:906) to the TPU-native likelihood contract: toy models are
+``test_mt``:906) to the jittable likelihood contract: toy models are
 written in jnp over full ``(ntemps, nwalkers, nleaves_max, ndim)`` leaf
 arrays with boolean masks (one batched XLA call replaces the reference's
 per-leaf host loops).

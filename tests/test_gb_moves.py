@@ -1,6 +1,6 @@
 """Galactic-binary / legacy move-zoo tests.
 
-Covers the TPU rebuilds of the reference's
+Covers the JAX rebuilds of the reference's
 ``LISAanalysistools/lisatools/sampling/moves/`` collection
 (``skymodehop.py:10`` SkyMove, ``globalfish.py:79``
 MultiSourceFisherProposal, ``gbfreqjump.py:26`` GBFreqJump,

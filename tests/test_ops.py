@@ -112,7 +112,7 @@ class TestBessel:
             np.testing.assert_allclose(got[n], scipy.special.jv(n, x), atol=1e-10)
 
     def test_kve_imag_real_pair(self):
-        # real-arithmetic TPU path matches the complex implementation / scipy
+        # real-arithmetic path matches the complex implementation / scipy
         w = np.concatenate([-np.logspace(-2, 4, 40), np.logspace(-2, 4, 40)])
         expect = scipy.special.kv(1.0 / 3.0, 1j * w) * np.exp(1j * w)
         from emri_frequencydomainwaveforms_tpu.ops.bessel import kve_one_third_imag

@@ -1,6 +1,6 @@
 """Multi-device sharding coverage on the conftest 8-CPU mesh.
 
-The reference is single-device (SURVEY §2.5); the TPU-native scaling axes
+The reference is single-device (SURVEY §2.5); the scaling axes here
 are walkers (data parallel) and the frequency grid (sequence-parallel
 analogue). These tests run the production sharding helpers
 (`parallel.mesh`) through real jitted computations on the virtual

@@ -5,7 +5,7 @@ its summary numbers could silently regress. This test reanalyzes the
 COMMITTED chain artifact (pe_validation_run.h5 — 330 iters, 4 temps,
 32 walkers, rwz production physics, committed in round 4) through the same
 analysis path `tools/pe_validation.py` uses, and pins the chain-derived
-summary statistics. It does NOT re-run the sampler (hours of TPU) and does
+summary statistics. It does NOT re-run the sampler (hours of device time) and does
 NOT recompute the Fisher yardstick (waveform evaluations; covered by the
 tool's --reanalyze mode) — what it guards is the backend/ACT/TI analysis
 chain over a fixed input.

@@ -332,9 +332,9 @@ class TestBandedTurnover:
         # per-mode omega-dependent complex rotations exercise the kernels'
         # envelope-phase paths. On CPU (exact f64 arithmetic) the kernels
         # are algorithmically equivalent at the interpolation-error level;
-        # the on-TPU bench gate uses a looser 1e-3 threshold because the
-        # two kernels' INDEPENDENT f32 phase-pipeline rounding decorrelates
-        # under these per-mode rotations (bench.py gate-1 comment).
+        # the bench gate uses a looser 1e-3 threshold, set when the two
+        # kernels' INDEPENDENT f32 phase-pipeline rounding decorrelated
+        # under these per-mode rotations on the first target device.
         from emri_frequencydomainwaveforms_tpu.models.summation_fd import (
             fd_mode_sum_uniform,
         )

@@ -33,7 +33,7 @@ Model-mapping caveats (documented, not hidden):
     flux vs their Teukolsky grid), so widths may differ at the same level
     the flux models differ (~0.2% in flux; PARITY.md).
 
-Run (TPU, ~3-6 min): PYTHONPATH=. python tools/reference_chain_check.py \
+Run: PYTHONPATH=. python tools/reference_chain_check.py \
     [--samples /root/reference/samples_GPU.npy] [--downsample 100]
 """
 

@@ -37,7 +37,7 @@ Validation (tests/test_rwz_eccentric.py): circular limit against
 circular.py, Newtonian limit per (l, m, n) against the package's
 validated flat-space multipole mode power, quadrature-resolution
 convergence.  Host-side tooling (numpy/scipy); generates calibration
-data for the TPU amplitude backends, never on the jit path.
+data for the JAX amplitude backends, never on the jit path.
 """
 
 from __future__ import annotations

@@ -16,7 +16,7 @@ variation-of-parameters projection
 with the delta-function sources reduced to boundary-term evaluations.
 
 This is host-side tooling (float64 numpy/scipy): it generates and
-validates the relativistic calibration data consumed by the TPU-path
+validates the relativistic calibration data consumed by the jitted
 amplitude backends; it is not on the jit hot path.
 
 Reference parity: computes the physical content of the reference's

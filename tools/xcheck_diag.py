@@ -29,8 +29,8 @@ def main():
     ap.add_argument("--stride", type=int, default=617)
     ap.add_argument("--quick", action="store_true",
                     help="skip the ablation sweep, print the baseline only")
-    ap.add_argument("--tpu", action="store_true",
-                    help="run on the default (TPU) backend instead of CPU")
+    ap.add_argument("--device", action="store_true",
+                    help="run on JAX's default device (the GPU) instead of the CPU")
     ap.add_argument("--save", type=str, default=None,
                     help="npz path: dump the baseline b64/g32 arrays")
     ap.add_argument("--compare", type=str, default=None,
@@ -40,7 +40,7 @@ def main():
 
     import jax
 
-    if not args.tpu:
+    if not args.device:
         jax.config.update("jax_platforms", "cpu")
 
     import jax.numpy as jnp
